@@ -1,7 +1,7 @@
 """Background cosmology: expansion, growth, and distances.
 
 The reference calls into the CCL C library for these quantities at pipeline
-run time (reference box.py:163-165,280-281,344-345,406,820,851).  On TPU we
+run time (reference box.py:163-165,280-281,344-345,406,820,851).  Here we
 instead evaluate everything *once at setup time* on the host (float64 numpy),
 so the jitted device pipeline only ever sees precomputed scalars and small
 interpolation tables — zero host callbacks inside jit.

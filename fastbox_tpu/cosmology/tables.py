@@ -1,6 +1,6 @@
 """Setup-time cosmology tabulation -> device-side interpolation.
 
-This is the TPU-native replacement for the reference's run-time CCL calls
+This is the on-device replacement for the reference's run-time CCL calls
 (reference box.py:163-165 evaluates P(k) at all N^3 |k| values through the C
 library on every realisation).  Here the host tabulates ln P(ln k) once per
 (cosmology, redshift); the jitted pipeline evaluates power spectra with a
@@ -45,8 +45,7 @@ class PowerSpectrumTable:
         """Interpolate P(k); returns 0 at k<=0 (reference nan_to_num, box.py:167).
 
         The table is built log-uniform, so interpolation is a direct index
-        computation plus two gathers — no binary search.  (On TPU,
-        ``jnp.interp``'s searchsorted lowering is ~10x slower.)
+        computation plus two gathers — no binary search.
         """
         k = jnp.asarray(k)
         safe = jnp.where(k > 0.0, k, 1.0)

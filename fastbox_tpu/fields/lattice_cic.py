@@ -1,11 +1,9 @@
 """Lattice-ordered CIC paint/gather as data-independent periodic rolls.
 
-TPU scatters and gathers with data-dependent indices are catastrophically
-slow (see CLAUDE.md; measured in scripts/microbench_tpu.py), and the COLA
-engine's per-step CIC paint + force gather (fields/cola.py, replacing the
-reference's pycola3 path at box.py:463-589) is built from exactly those.
-
-This module exploits the structure a PM lattice gives us: particles are
+The COLA engine's per-step CIC paint + force gather (fields/cola.py,
+replacing the reference's pycola3 path at box.py:463-589) is a scatter-add
+and a gather with data-dependent indices.  This module is the alternative
+that needs neither: it exploits the structure a PM lattice gives us: particles are
 never reordered, so the particle array IS a (N, N, N) grid in Lagrangian
 order, and each particle's displacement from its own lattice site is
 physically bounded (a few cells for any cosmological box).  When every
@@ -14,8 +12,8 @@ particle at lattice site ``l`` only touches cells ``l + o`` with per-axis
 offset ``o`` in ``[-B, B+1]`` — so the scatter-add becomes a sum of
 ``(2B+2)^3`` *data-independent* periodic rolls of elementwise weight
 products, and the gather becomes the same sum with the mesh rolled the
-other way.  Rolls are pure lane/sublane shifts on TPU: no serialisation,
-no random HBM traffic.
+other way.  Rolls are dense, data-independent memory traffic: no atomics,
+no random access.
 
 The periodic roll topology makes box wrapping exact: a particle that
 crossed the box edge has a wrapped displacement near +-N/2 only if it
@@ -51,9 +49,7 @@ def wrapped_displacement_axes(u3, N: int):
 
     Returns a (dx, dy, dz) tuple of (N, N, N) arrays — the tuple form
     every lattice kernel accepts directly.  Each lattice coordinate is a
-    broadcast 1-D iota, so nothing rank-4 is materialised (the AoS
-    (N, N, N, 3) form tiles as T(4,128) with a 1.33x pad at engine-state
-    scale — the round-5 512^3 COLA HBM finding)."""
+    broadcast 1-D iota, so nothing rank-4 is materialised."""
     dt = u3.dtype
     ax = jnp.arange(N, dtype=dt)
     out = []

@@ -28,12 +28,10 @@ __all__ = ["lpt_displacements", "second_order_growth"]
 def lpt_displacements(delta_k, grid: GridSpec):
     """1LPT and 2LPT displacement fields from a linear density field.
 
-    Works on the rfft HALF spectrum internally (round 5): the density
-    is real, so the full-spectrum formulation carried 2x the complex
-    bytes for nothing — at 512^3 its program needed 17.0 GB (13.0 GB of
-    temps, compiled.memory_analysis()) against 15.75 GB of HBM, which
-    blocked the first 512^3 COLA.  Half-spectrum C2R/R2C transforms are
-    also the only natively-supported TPU FFT class (CLAUDE.md).
+    Works on the rfft HALF spectrum internally: the density is real, so
+    the full-spectrum formulation carried 2x the complex bytes for
+    nothing (at 512^3 its program needed 17.0 GB, 13.0 GB of them
+    temps, compiled.memory_analysis()).
 
     Parameters:
         delta_k: Fourier-space linear overdensity — full (N, N, N)

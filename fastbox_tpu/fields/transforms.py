@@ -1,6 +1,6 @@
 """Stateless field transforms (L3 of SURVEY.md layer map).
 
-TPU-native versions of the reference's Fourier-space transfer functions,
+JAX versions of the reference's Fourier-space transfer functions,
 top-hat smoothing, and log-normal transform (box.py:356-381, 441-460,
 595-655).
 """

@@ -3,7 +3,7 @@
 Reference: ``fastbox.filters.LSQfitting`` (filters.py:598-747) — per-pixel
 synchrotron power-law fits with lmfit, fanned out over 7
 ``multiprocessing.Process`` workers with a Queue gather (filters.py:702-719).
-On TPU the per-pixel fit is a tiny bounded Gauss-Newton iteration, vmapped
+Here the per-pixel fit is a tiny bounded Gauss-Newton iteration, vmapped
 over every pixel at once: the process fan-out disappears entirely
 (SURVEY.md §2.4).
 

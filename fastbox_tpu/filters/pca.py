@@ -5,7 +5,7 @@ reshapes to (Nfreq, Npix), subtracts the mean spectrum, builds the
 freq-freq covariance with ``np.cov`` (ddof=1), eigendecomposes, and subtracts
 the projection onto the top ``nmodes`` eigenvectors plus the mean.
 
-On TPU this is two GEMMs (covariance, projection) and an Nfreq x Nfreq
+Here this is two GEMMs (covariance, projection) and an Nfreq x Nfreq
 ``eigh`` — all fused into the jitted pipeline.  The cleaned field is
 invariant under the eigenvector sign/rotation ambiguity, so results match
 the reference's ``np.linalg.eig`` path exactly (the covariance is symmetric).
@@ -52,13 +52,11 @@ def pca_filter(field, nmodes: int, return_filter: bool = False,
     x = d - d_mean
 
     # np.cov with ddof=1 (rows already mean-free).  These three GEMMs
-    # default to HIGHEST precision: at DEFAULT the MXU does a single bf16
-    # pass, and that rounding alone moved the PCA-cleaned P(k) low bins
-    # ~4e-2 relative to the f64 oracle on the same realisation — 14x the
-    # f32 conditioning floor — while HIGHEST sits at the floor
-    # (scripts/truth_gate.py, TRUTH_GATE.json).  The HIGH tier (bf16x3,
-    # ~2.4e-7/element vs DEFAULT's ~2e-3) is a round-4 gate candidate
-    # (PipelineConfig.pca_precision, variant 'pca_high').
+    # default to HIGHEST precision: a single bf16 pass moved the
+    # PCA-cleaned P(k) low bins ~4e-2 relative to the f64 oracle on the
+    # same realisation — 14x the f32 conditioning floor — while HIGHEST
+    # sits at the floor (scripts/truth_gate.py; PipelineConfig
+    # .pca_precision, variants 'pca_high' / 'pca_default').
     prec = (jax.lax.Precision.HIGHEST if precision is None
             else getattr(jax.lax.Precision, precision))
     cov = jnp.matmul(x, x.T, precision=prec) / (npix - 1)
@@ -86,8 +84,7 @@ def topk_eigvecs_subspace(cov, nmodes: int, iters: int = 8,
     (lambda_{p+1}/lambda_i)^iters for eigenvector i — the OVERSAMPLED gap,
     not the fragile lambda_{nmodes+1}/lambda_{nmodes} gap that made the
     plain block iteration diverge from eigh when the trailing kept mode
-    sat near the noise floor (round-2 truth gate: 1.1 rel on cleaned
-    P(k)).  The Rayleigh-Ritz step then extracts exact eigenvectors OF
+    sat near the noise floor (truth gate: 1.1 rel on cleaned P(k)).  The Rayleigh-Ritz step then extracts exact eigenvectors OF
     THE PROJECTED PROBLEM via a tiny (p, p) eigh, so the returned modes
     match ``jnp.linalg.eigh(cov)``'s top block to the convergence error
     rather than spanning an unresolved rotation.
@@ -119,7 +116,7 @@ def pca_filter_subspace(field, nmodes: int, iters: int = 8,
 
     The cleaned field depends only on the span of the top eigenvectors;
     :func:`topk_eigvecs_subspace` recovers that span at the oversampled
-    convergence rate, avoiding the TPU's slow Nfreq x Nfreq
+    convergence rate, avoiding the full Nfreq x Nfreq
     eigendecomposition (the (p, p) Rayleigh-Ritz eigh is tiny).  Residual
     caveat: if lambda_nmodes itself is degenerate with the noise floor,
     the "top-n span" is ill-conditioned for ANY method (including exact

@@ -2,7 +2,7 @@
 
 The reference stores its geometry on the mutable ``CosmoBox`` object and
 materialises four N^3 Fourier-index arrays up front (``Kx, Ky, Kz, k``,
-reference box.py:110-127).  TPU-natively the geometry is a small frozen
+reference box.py:110-127).  Here the geometry is a small frozen
 dataclass of Python scalars — hashable, so it can be a static argument to
 jitted functions — and the k-grids are generated *inside* jit from three 1-D
 index vectors by broadcasting.  XLA fuses the broadcast arithmetic into

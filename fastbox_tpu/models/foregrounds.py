@@ -1,6 +1,6 @@
 """Foreground emission models (L4).
 
-TPU-native rebuild of the reference's ``fastbox/foregrounds.py``:
+JAX rebuild of the reference's ``fastbox/foregrounds.py``:
 
 * ``ForegroundModel`` — the diffuse power-law foreground used by the
   end-to-end example (foregrounds.py:34-174): a 2D Gaussian random field with
@@ -62,8 +62,8 @@ def _scipy_gaussian_kernel1d(sigma: float, n: int) -> np.ndarray:
 def complex_white_noise(key, shape, dtype=jnp.float32):
     """Complex unit white noise re + i im, jitted.
 
-    Must be jitted: in eager mode the Python ``1j`` scalar promotes to
-    complex128, which the TPU backend cannot create.
+    Jitted, so the Python ``1j`` scalar does not promote the result to
+    complex128 in eager mode.
     """
     k1, k2 = jax.random.split(key)
     return (jax.random.normal(k1, shape, dtype)
@@ -138,11 +138,11 @@ class ForegroundModel:
         """cube = amps * ffac_mean(nu) * exp(dalpha * logf(nu)), for
         |dalpha * logf| << 1 — the accurate f32 form of construct_cube_fn.
 
-        Why this exists (round-4 truth-gate finding, 2026-08-20): the
-        cleaned P(k)'s low bins are dominated by the FOREGROUND cube's
-        pixel-decorrelated f32 rounding — swapping only fg_cube into
-        otherwise-f64 data reproduces +1.64e-2 of the +1.77e-2 bin-1
-        error at 256^3/key 1001 (scripts/probe_stage_diff.py).  The
+        Why this exists (a truth-gate finding): the cleaned P(k)'s low
+        bins are dominated by the FOREGROUND cube's pixel-decorrelated
+        f32 rounding — swapping only fg_cube into otherwise-f64 data
+        reproduces +1.64e-2 of the +1.77e-2 bin-1 error at 256^3/key
+        1001.  The
         generic ``(nu/nu_ref)**alpha`` evaluates exp(alpha*log(nu/ref))
         in f32: the log's rounding is amplified by |alpha*log| ~ 3.7,
         giving ~4e-7 relative error per VOXEL (decorrelated between

@@ -1,12 +1,16 @@
-"""Binned reductions (histograms) designed for the TPU memory system.
+"""Binned reductions (histograms) in one pass over the data.
 
 The reference bins its power spectrum with ``np.digitize`` plus a Python loop
 doing one full-array masked mean per bin (box.py:758-765) — O(nbins * N^3)
 traffic and the dominant cost of its estimation stage (~25 s at 128^3,
 BASELINE.md).  Here the (sum, sum of squares, count) of every bin are
 accumulated in a *single pass* over the data: the flat array is processed in
-lane-aligned chunks and each chunk's contribution is a small one-hot matmul
-that runs on the MXU, scanned so XLA pipelines HBM reads with compute.
+fixed-size chunks and each chunk's contribution is a small one-hot matmul,
+scanned so XLA pipelines the reads with compute.
+
+The one-hot contractions run at ``precision=HIGHEST``: a float32 dot at a
+lower precision may run on reduced-precision tensor cores (TF32 keeps ~3
+digits), and these sums carry the data, so they must be float32-exact.
 """
 from __future__ import annotations
 
@@ -15,7 +19,8 @@ import jax.numpy as jnp
 
 __all__ = ["binned_sum_sumsq_count", "binned_sums"]
 
-_CHUNK = 65536  # 512 sublanes x 128 lanes at f32
+_CHUNK = 65536
+_HIGHEST = jax.lax.Precision.HIGHEST
 
 
 def _chunked(values, bin_idx, nbins: int, stats: int):
@@ -44,7 +49,8 @@ def _chunked(values, bin_idx, nbins: int, stats: int):
             stacked = jnp.stack([v, v * v, jnp.ones_like(v)])  # (3, chunk)
         else:
             stacked = v[None, :]
-        return acc + jnp.dot(stacked, onehot, preferred_element_type=dtype), None
+        return acc + jnp.dot(stacked, onehot, precision=_HIGHEST,
+                             preferred_element_type=dtype), None
 
     init = jnp.zeros((stats, nbins + 1), dtype)
     acc, _ = jax.lax.scan(body, init, (values, bin_idx))
@@ -102,7 +108,8 @@ def binned_weighted_dual(values1, values2, weights, bin_idx, nbins: int):
         x1, x2, ww, bb = xs
         onehot = jax.nn.one_hot(bb, nbins + 1, dtype=x1.dtype)
         stacked = jnp.stack([ww * x1, ww * x1 * x1, ww * x2, ww * x2 * x2, ww])
-        return acc + jnp.dot(stacked, onehot, preferred_element_type=x1.dtype), None
+        return acc + jnp.dot(stacked, onehot, precision=_HIGHEST,
+                             preferred_element_type=x1.dtype), None
 
     init = jnp.zeros((5, nbins + 1), v1.dtype)
     acc, _ = jax.lax.scan(body, init, (v1, v2, w, b))
@@ -135,7 +142,8 @@ def binned_weighted_sum_sumsq_count(values, weights, bin_idx, nbins: int):
         vv, ww, bb = xs
         onehot = jax.nn.one_hot(bb, nbins + 1, dtype=vv.dtype)
         stacked = jnp.stack([ww * vv, ww * vv * vv, ww])
-        return acc + jnp.dot(stacked, onehot, preferred_element_type=vv.dtype), None
+        return acc + jnp.dot(stacked, onehot, precision=_HIGHEST,
+                             preferred_element_type=vv.dtype), None
 
     init = jnp.zeros((3, nbins + 1), v.dtype)
     acc, _ = jax.lax.scan(body, init, (v, w, b))

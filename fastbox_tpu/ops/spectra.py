@@ -4,7 +4,7 @@ Two families live here:
 
 1. ``binned_power_spectrum`` — exact convention-match of the reference's
    in-repo estimator (box.py:696-768), with the O(nbins * N^3) digitize loop
-   replaced by a single-pass MXU histogram (ops/reduce.py).
+   replaced by a single-pass one-hot-matmul histogram (ops/reduce.py).
 
 2. ``power_spectrum`` / ``power_multipoles`` / ``correlation_function`` /
    ``correlation_multipoles`` — the native replacement for the external

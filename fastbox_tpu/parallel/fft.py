@@ -1,10 +1,10 @@
 """Distributed 3D FFTs by slab decomposition (the nbodykit/pfft replacement).
 
 The reference scales its mesh FFTs through nbodykit's MPI slab-decomposed
-pfft (SURVEY.md §2.3, §5.8).  TPU-natively the same decomposition is
-expressed with ``jax.lax.all_to_all`` over a named mesh axis: transform the
-two unsharded axes locally, all-to-all transpose the slab axis against one
-of them over ICI, transform the remaining axis, transpose back.
+pfft (SURVEY.md §2.3, §5.8).  Here the same decomposition is expressed
+with ``jax.lax.all_to_all`` over a named mesh axis: transform the two
+unsharded axes locally, all-to-all transpose the slab axis against one of
+them, transform the remaining axis, transpose back.
 
 These helpers are written for use *inside* ``shard_map`` with arrays of
 shape (B, N/P, N, N): a local batch of row-slabs.  The z (LOS) axis is
@@ -13,9 +13,9 @@ communication-free.
 """
 from __future__ import annotations
 
-import jax.numpy as jnp
-from ..ops import fft_safe
 from jax import lax
+
+from ..ops import fft_safe
 
 __all__ = [
     "pfft3_local", "pifft3_local", "pfft2_local", "pifft2_local",
@@ -40,7 +40,7 @@ def pifft3_local(x, axis_name: str):
     return lax.all_to_all(x, axis_name, split_axis=1, concat_axis=2, tiled=True)
 
 
-def prfft3_local(x, axis_name: str, precision=None):
+def prfft3_local(x, axis_name: str):
     """Real-input forward 3D FFT of a batched row-slab.
 
     (B, N/P, N, N) real -> (B, N/P, N, N//2+1) complex half-spectrum over
@@ -48,31 +48,25 @@ def prfft3_local(x, axis_name: str, precision=None):
     all-to-all transposes move half the bytes of the full-spectrum
     ``pfft3_local`` — the rfft treatment the single-chip pipeline already
     uses, extended to the slab decomposition.
-
-    ``precision`` threads to the matmul-DFT stages on TPU (None inherits
-    the mmfft module default) so ``PipelineConfig.mm3d_precision`` governs
-    the big 3D transforms of the sharded step exactly as it does the
-    single-chip pipeline's.
     """
-    x = fft_safe.rfft(x, axis=3, precision=precision)
-    x = fft_safe.fft(x, axis=2, precision=precision)
+    x = fft_safe.rfft(x, axis=3)
+    x = fft_safe.fft(x, axis=2)
     x = lax.all_to_all(x, axis_name, split_axis=2, concat_axis=1, tiled=True)
-    x = fft_safe.fft(x, axis=1, precision=precision)
+    x = fft_safe.fft(x, axis=1)
     return lax.all_to_all(x, axis_name, split_axis=1, concat_axis=2, tiled=True)
 
 
-def pirfft3_local(x, n: int, axis_name: str, precision=None):
+def pirfft3_local(x, n: int, axis_name: str):
     """Inverse of :func:`prfft3_local`.
 
     (B, N/P, N, N//2+1) complex -> (B, N/P, N, n) real, with ``n`` the full
     z-axis length (required because N//2+1 is ambiguous in parity).
-    ``precision`` as in :func:`prfft3_local`.
     """
     x = lax.all_to_all(x, axis_name, split_axis=2, concat_axis=1, tiled=True)
-    x = fft_safe.ifft(x, axis=1, precision=precision)
+    x = fft_safe.ifft(x, axis=1)
     x = lax.all_to_all(x, axis_name, split_axis=1, concat_axis=2, tiled=True)
-    x = fft_safe.ifft(x, axis=2, precision=precision)
-    return fft_safe.irfft(x, n=n, axis=3, precision=precision)
+    x = fft_safe.ifft(x, axis=2)
+    return fft_safe.irfft(x, n=n, axis=3)
 
 
 def pfft2_local(x, axis_name: str):

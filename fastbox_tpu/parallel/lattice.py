@@ -6,7 +6,7 @@ extends the same formulation to a slab decomposition of the leading (x)
 axis inside ``shard_map``: rolls along the two *unsharded* axes stay local,
 while cross-slab flow along the sharded axis is a pair of ``lax.ppermute``
 strip exchanges per call — exactly the halo exchange a domain-decomposed PM
-code performs over MPI, expressed as an XLA collective that rides ICI.
+code performs over MPI, expressed as an XLA collective.
 
 Geometry: a particle with wrapped displacement ``|d| <= B`` cells touches
 cells offset by ``o in [-B, B+1]`` from its own lattice site, so a slab's
@@ -15,7 +15,7 @@ particles spill at most ``H = B + 1`` rows into each neighbouring slab
 ``(S + 2H)``-row buffer and ships the two ``H``-row halo strips to the
 neighbours; gather first builds an ``(S + 2H)``-row halo-extended mesh from
 the neighbours and then reads static slices of it — no data-dependent
-indexing anywhere, so both lower to pure vector code on TPU.
+indexing anywhere, so both lower to dense, data-independent code.
 
 Replaces: the reference's pycola3 evolution is single-process
 (/root/reference/fastbox/box.py:499-537); its only distributed mesh path is

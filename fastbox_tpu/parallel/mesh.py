@@ -4,7 +4,7 @@ The scaling model (SURVEY.md §5.7-5.8): a 2-D logical mesh
 ``('ens', 'space')`` where 'ens' is pure data parallelism over Monte-Carlo
 realisations and 'space' shards the leading spatial axis of each N^3 cube
 (slab decomposition).  FFTs along the sharded axis become local FFTs +
-all-to-all transposes over ICI; everything else is local or a psum.
+all-to-all transposes between devices; everything else is local or a psum.
 """
 from __future__ import annotations
 

@@ -39,8 +39,8 @@ TAGS = {
 def bm_pair(k1, k2, shape, dtype):
     """One Box-Muller transform: TWO independent N(0,1) fields of ``shape``.
 
-    The canonical threefry-uniform Box-Muller used everywhere outside
-    Pallas (``_bm_normal`` rows here, ``fields.gaussian._complex_normal``
+    The canonical threefry-uniform Box-Muller used everywhere
+    (``_bm_normal`` rows here, ``fields.gaussian._complex_normal``
     re/im pairs); keeping it in one place pins the stream — the
     tiny-floored ``u1`` endpoint convention and the (cos, sin) output
     order DEFINE which realisation a key maps to.
@@ -60,10 +60,9 @@ def _bm_normal(key, shape, dtype):
     Same determinism contract as ``jax.random.normal`` (pure function of
     the key, platform-independent) but a DIFFERENT stream, and a much
     lighter lowering: ``erf_inv`` evaluates a ~20-coefficient polynomial
-    whose constant broadcasts XLA:TPU materialises as full-shape HLO
-    temps — at 1024^3 slab shapes that alone exceeded per-chip HBM
-    (SCALING_1024_TPU.json round-3 finding: 31 GiB asked of 15.75 GiB,
-    dominated by ``erf_inv.*.remat2 = broadcast(constant)`` temps).
+    whose constant broadcasts XLA can materialise as full-shape HLO
+    temps — at 1024^3 slab shapes a 16 GB device ran out of memory on
+    them (31 GiB of ``erf_inv.*.remat2 = broadcast(constant)`` temps).
     Box-Muller is two transcendentals with no coefficient tables.
 
     Both halves of each (cos, sin) pair are used when the trailing axis
@@ -87,8 +86,7 @@ def row_normal(key, tag: int, row0, nrows: int, row_shape, dtype,
 
     ``method`` selects the bits->normal transform: ``"erfinv"`` (the
     ``jax.random.normal`` stream, default) or ``"box_muller"`` (the
-    memory-lean stream — see :func:`_bm_normal`; required to fit 1024^3
-    slabs in v5e HBM).  Both are deterministic per (key, tag, row), so
+    memory-lean stream — see :func:`_bm_normal`; used from 1024^3 up).  Both are deterministic per (key, tag, row), so
     mesh-shape independence holds for either; they are different
     realisation streams.
     """

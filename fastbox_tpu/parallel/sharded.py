@@ -8,7 +8,7 @@ beam/kpar response -> PCA clean -> binned P(k) step runs inside a single
 
   * 'ens'   — data parallelism over realisations (no communication)
   * 'space' — slab decomposition of the leading spatial axis; 3D/2D FFTs use
-              all-to-all transposes over ICI (parallel/fft.py); global
+              all-to-all transposes (parallel/fft.py); global
               reductions (lognormal mean, PCA covariance, P(k) bins,
               sigma_data) psum over 'space'; per-LOS ops (RSD, k_par
               filters) stay local because the z axis is never sharded.
@@ -129,7 +129,7 @@ def make_sharded_ensemble_step(mesh: Mesh, grid: GridSpec, cosmology: Cosmology,
     # Foreground spectral factors (config parity with pipeline.py's
     # fg_spectral='poly' path): the generic f32 (nu/ref)**alpha carries
     # pixel-decorrelated exp/log rounding that dominates the cleaned
-    # low bins (TRUTH_GATE_256.json round 4: 1.77e-2 -> 1.26e-3).  Keep
+    # low bins (truth gate at 256^3: 1.77e-2 -> 1.26e-3).  Keep
     # the large pixel-common factors in host f64 and evaluate only the
     # tiny pixel-varying exp(dalpha*logf) by a cubic Taylor polynomial.
     if config.fg_spectral not in ("poly", "pow"):
@@ -181,16 +181,11 @@ def make_sharded_ensemble_step(mesh: Mesh, grid: GridSpec, cosmology: Cosmology,
         # statistics to the reference's complex draw + .real projection
         # (box.py:174-193).
         white = draw(TAGS["density"], (N, N))         # (B, Np, N, N) real
-        white_h = prfft3_local(white, "space",
-                               precision=config.mm3d_precision) \
+        white_h = prfft3_local(white, "space") \
             * dtype.type(N ** -1.5)                    # unit-variance Hermitian
         amp = jnp.sqrt(jnp.nan_to_num(pk_fn(kmag_loc)) * dtype.type(boxfactor))
         delta_k = white_h * amp[None]                  # (B, Np, N, H)
-        delta_x = pirfft3_local(delta_k, N, "space",
-                                precision=(config.dx_precision
-                                           if config.dx_precision is not None
-                                           else config.mm3d_precision)
-                                ).astype(dtype)
+        delta_x = pirfft3_local(delta_k, N, "space").astype(dtype)
 
         # --- (2) bias + lognormal (global mean over the cube) --------
         e = jnp.exp(delta_x * dtype.type(bias))
@@ -201,14 +196,7 @@ def make_sharded_ensemble_step(mesh: Mesh, grid: GridSpec, cosmology: Cosmology,
         inv_k2 = jnp.where(k2_loc > 0, 1.0 / jnp.where(k2_loc > 0, k2_loc, 1.0), 0.0)
         vz_k = (1j * dtype.type(vel_fac)) * delta_k * (kzh[None, None, :] * inv_k2)
         vz_k = jnp.where(jnp.asarray(nyq_z)[None, None, None, :], 0.0, vz_k)
-        # Same precision-resolution rule as the single-chip pipeline
-        # (vel_precision falls back to mm3d_precision) so the 'rows'
-        # scheme stays bit-identical between the two paths on TPU.
-        vel_z = pirfft3_local(vz_k, N, "space",
-                              precision=(config.vel_precision
-                                         if config.vel_precision is not None
-                                         else config.mm3d_precision)
-                              ).astype(dtype)
+        vel_z = pirfft3_local(vz_k, N, "space").astype(dtype)
 
         # --- (4) RSD remap (fully local: LOS axis unsharded) ---------
         vel = vel_z
@@ -286,9 +274,8 @@ def make_sharded_ensemble_step(mesh: Mesh, grid: GridSpec, cosmology: Cosmology,
         mean_spec = lax.psum(jnp.sum(d2, axis=1), "space") / npix_total
         x = d2 - mean_spec[:, None, :]
         # Same pca_precision resolution as the single-chip pipeline
-        # (filters/pca.py: single-pass bf16 here moves the cleaned P(k)
-        # low bins ~4e-2 vs the f64 oracle; the shipping HIGH tier is
-        # gate-admitted, TRUTH_GATE_256_R4D.json)
+        # (filters/pca.py: a reduced-precision GEMM here moves the
+        # cleaned P(k) low bins far above the f32 floor)
         _prec = (jax.lax.Precision.HIGHEST
                  if config.pca_precision is None
                  else getattr(jax.lax.Precision, config.pca_precision))
@@ -307,10 +294,7 @@ def make_sharded_ensemble_step(mesh: Mesh, grid: GridSpec, cosmology: Cosmology,
         # --- (8) binned P(k): cleaned cube + underlying density ------
         # Half-spectrum reduction with kz multiplicity weights: exactly the
         # full-grid mean/stddev convention of box.py:696-768.
-        ck = prfft3_local(cleaned, "space",
-                          precision=(config.fwd_precision
-                                     if config.fwd_precision is not None
-                                     else config.mm3d_precision))
+        ck = prfft3_local(cleaned, "space")
         p_clean = (ck * jnp.conj(ck)).real / dtype.type(boxfactor)
         p_dens = (delta_k * jnp.conj(delta_k)).real / dtype.type(boxfactor)
         if bin_thr is not None:

@@ -3,7 +3,7 @@
 The reference runs its estimators through nbodykit's MPI-parallel FFTPower
 and FFTCorr (SURVEY.md §2.3; examples/example_halos.py, example_corr_fn.py)
 — the one genuinely distributed component it has.  These factories are the
-TPU-native counterparts for cubes that live sharded over a ``'space'`` mesh
+SPMD counterparts for cubes that live sharded over a ``'space'`` mesh
 axis (e.g. the output of ``parallel.make_sharded_cola`` at >= 1024^3, where
 gathering the cube to one chip or the host is not an option):
 

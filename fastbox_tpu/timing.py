@@ -3,7 +3,7 @@
 The reference examples wrap each stage with ad-hoc ``time.time()`` prints
 ("(1) Generating box complete (4.245 sec)", SURVEY.md §5.1).  This module
 provides that UX as a context manager, plus an optional hook into
-``jax.profiler`` trace annotations so stages show up in TPU profiles.
+``jax.profiler`` trace annotations so stages show up in device profiles.
 """
 from __future__ import annotations
 

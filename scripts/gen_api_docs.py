@@ -25,6 +25,7 @@ MODULES = [
     "fastbox_tpu.utils",
     "fastbox_tpu.io",
     "fastbox_tpu.timing",
+    "fastbox_tpu.compile_cache",
     "fastbox_tpu.plot",
     "fastbox_tpu.cosmology.params",
     "fastbox_tpu.cosmology.background",
@@ -37,17 +38,12 @@ MODULES = [
     "fastbox_tpu.fields.lpt",
     "fastbox_tpu.fields.cola",
     "fastbox_tpu.fields.lattice_cic",
+    "fastbox_tpu.ops.fft_safe",
     "fastbox_tpu.ops.spectra",
     "fastbox_tpu.ops.rsd",
     "fastbox_tpu.ops.painting",
     "fastbox_tpu.ops.reduce",
     "fastbox_tpu.ops.nbodykit_compat",
-    "fastbox_tpu.ops.pallas.rsd_fused",
-    "fastbox_tpu.ops.pallas.rsd_interp",
-    "fastbox_tpu.ops.pallas.banded_interp",
-    "fastbox_tpu.ops.pallas.binned_pk",
-    "fastbox_tpu.ops.pallas.noise",
-    "fastbox_tpu.ops.pallas.lattice_cic",
     "fastbox_tpu.filters.pca",
     "fastbox_tpu.filters.ica",
     "fastbox_tpu.filters.kpca",

@@ -13,7 +13,7 @@ cells are executed in-process (stdout + matplotlib figures captured),
 and a complete nbformat-4 JSON is written — no jupyter/nbconvert needed
 (neither is installed here).
 
-Run ON THE TPU from the repo root (no PYTHONPATH):
+Run on the GPU from the repo root:
 
     python scripts/make_notebooks.py --out examples/notebooks
 
@@ -107,7 +107,7 @@ def run_notebook(cells, out_path, ns_extra=None):
 # ---------------------------------------------------------------------
 END_TO_END = [
     ("md", """
-# Example end-to-end analysis (TPU-native)
+# Example end-to-end analysis
 
 This notebook performs the same end-to-end simulation as the reference
 FastBox notebook (`examples/End-to-end_simulation.ipynb`): generate a
@@ -116,7 +116,7 @@ transform it to redshift space, scale to brightness temperature, add
 Galactic synchrotron foregrounds and radiometer noise, clean with
 PCA/ICA/NMF, and measure power spectra and correlation functions.
 
-Everything here runs on ONE TPU chip through `fastbox_tpu`; the stage
+Everything here runs on one device through `fastbox_tpu`; the stage
 timings printed by each cell are directly comparable to the reference's
 recorded cell outputs (`(1) Generating box complete (4.245 sec)` etc. on
 an unknown CPU).
@@ -127,11 +127,8 @@ import numpy as np
 import jax, jax.numpy as jnp
 import matplotlib.pyplot as plt
 
-jax.config.update("jax_compilation_cache_dir",
-                  os.path.expanduser("~/.cache/jax_fastbox"))
-
-import fastbox_tpu
-fastbox_tpu.ensure_platform()
+from fastbox_tpu.compile_cache import enable_compile_cache
+enable_compile_cache()
 import fastbox_tpu.filters as filters
 from fastbox_tpu import CosmoBox, default_cosmo
 from fastbox_tpu.models import ForegroundModel, HITracer, NoiseModel
@@ -350,7 +347,7 @@ fig.colorbar(im, ax=axes, label="T [mK]", fraction=0.02)
     ("md", """
 ## Recap
 
-The stage timings above, measured on one TPU chip, correspond 1:1 to the
+The stage timings above correspond 1:1 to the
 reference notebook's recorded CPU cell outputs (box 4.245 s, foregrounds
 0.163 s, noise 0.095 s, PCA 0.150 s, ICA 0.906 s, NMF 1.862 s, spectra
 24.775 s, correlation functions 0.971 s).  The full-pipeline production
@@ -414,7 +411,7 @@ for name, cube in [("pca", cleaned_pca), ("ica", cleaned_ica),
 # ---------------------------------------------------------------------
 FISHER = [
     ("md", """
-# Fisher matrix for cross-spectrum bandpowers (TPU-native)
+# Fisher matrix for cross-spectrum bandpowers
 
 Forecast for the bandpowers of the cross-spectrum between an intensity
 map (MeerKAT-like single-dish UHF survey) and an overlapping
@@ -425,8 +422,6 @@ $C_\\ell$ integrator replacing `ccl.angular_cl`.
     ("code", """
 import numpy as np
 import matplotlib.pyplot as plt
-import fastbox_tpu
-fastbox_tpu.ensure_platform()
 from fastbox_tpu.analysis import forecast
 from fastbox_tpu.cosmology import build_cosmology
 
@@ -520,7 +515,7 @@ fig.tight_layout()
 # ---------------------------------------------------------------------
 PSM = [
     ("md", """
-# LSQ fit applied to PSM-style sims (TPU-native)
+# LSQ fit applied to PSM-style sims
 
 End-to-end simulation mirroring the reference's
 `Planck_Sky_model_parameters.ipynb`: a log-normal HI field on a
@@ -546,11 +541,8 @@ import numpy as np
 import jax, jax.numpy as jnp
 import matplotlib.pyplot as plt
 
-jax.config.update("jax_compilation_cache_dir",
-                  os.path.expanduser("~/.cache/jax_fastbox"))
-
-import fastbox_tpu
-fastbox_tpu.ensure_platform()
+from fastbox_tpu.compile_cache import enable_compile_cache
+enable_compile_cache()
 import fastbox_tpu.filters as filters
 from fastbox_tpu import CosmoBox, default_cosmo
 from fastbox_tpu.filters.lsq import LSQfitting

@@ -1,38 +1,30 @@
 #!/usr/bin/env python
 """Truth-anchored accuracy gate for the end-to-end pipeline.
 
-Problem (CLAUDE.md): every perf knob (mm-precision HIGH, fft_pair,
-pallas-DFT, ...) has so far been judged by bit-drift against the
-INCUMBENT f32 path, not against truth.  Because the PCA-cleaned P(k)
-low bins are a small residual of a large foreground subtraction, a
-knob that moves them 5e-2 relative might be (a) genuinely wrong or
-(b) exactly as close to the true answer as the incumbent — the bins
-may simply be conditioning-limited in f32.
+The PCA-cleaned P(k) low bins are a small residual of a large foreground
+subtraction, so a configuration that moves them by 1e-2 relative may be
+(a) genuinely wrong or (b) as close to the true answer as float32 allows
+— the bins are conditioning-limited.  This gate settles it with a per-bin
+f64 ORACLE on the same realisation: ``PipelineConfig(draw_dtype=
+'float32', threefry_noise=True)`` makes the f64 pipeline consume the exact
+f32 random stream (jax.random draws are dtype-dependent, so this is the
+only way an f64 run is the same realisation).
 
-This gate settles it with a per-bin f64 ORACLE on the same realisation:
-``PipelineConfig(draw_dtype='float32', threefry_noise=True)`` makes the
-f64 pipeline consume the exact f32 threefry stream (jax.random draws
-are dtype-dependent, so this is the only way an f64 run is the same
-realisation), and forces the sigma_nl/noise draws off the TPU-only
-Pallas PRNG so CPU and TPU see identical noise.
-
-Usage (two phases, two processes — the TPU is single-process-exclusive):
+Usage (two phases, two processes):
 
   # Phase A: f64 truth + f32 conditioning floor, on CPU
   JAX_PLATFORMS=cpu python scripts/truth_gate.py truth \
-      --nsamp 128 --keys 4 --out truth_gate_128.npz
+      --nsamp 256 --box 4e3 --keys 4 --out truth_gate_256.npz
 
-  # Phase B: knob variants on the real TPU (run from the repo root,
-  # NO PYTHONPATH)
-  python scripts/truth_gate.py check --truth truth_gate_128.npz
+  # Phase B: configuration variants on the GPU
+  python scripts/truth_gate.py check --truth truth_gate_256.npz
 
 Phase B prints one line per variant with the max relative deviation of
 the cleaned P(k) from the f64 truth, alongside the CPU-f32 floor.  A
-knob whose deviation is comparable to the floor is conditioning-limited
-(admissible); one far above it is genuinely less accurate.
+variant whose deviation is comparable to the floor is conditioning-
+limited (admissible); one far above it is genuinely less accurate.
 """
 import argparse
-import dataclasses
 import json
 import os
 import sys
@@ -45,20 +37,16 @@ def _setup_jax(cpu: bool):
         os.environ["JAX_PLATFORMS"] = "cpu"
     import jax
 
-    os.makedirs(os.path.expanduser("~/.cache/jax_fastbox"), exist_ok=True)
-    jax.config.update("jax_compilation_cache_dir",
-                      os.path.expanduser("~/.cache/jax_fastbox"))
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from fastbox_tpu.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     if cpu:
         jax.config.update("jax_platforms", "cpu")
         jax.config.update("jax_enable_x64", True)
     return jax
 
 
-def _build(jax, nsamp, box, redshift):
-    import fastbox_tpu
-
-    fastbox_tpu.ensure_platform()
+def _build(nsamp, box, redshift):
     from fastbox_tpu.cosmology import build_cosmology
     from fastbox_tpu.grid import GridSpec
 
@@ -78,8 +66,8 @@ def _run(jax, grid, cosmology, config, keys, chained=False):
 
     if chained:
         # One chained dispatch over all gate keys: exercises the
-        # scan -> batched-eigh -> scan structure production uses
-        # (PipelineConfig.eigh_hoist), which make_pipeline cannot reach.
+        # scan -> batched-eigh -> scan structure (PipelineConfig
+        # .eigh_hoist), which make_pipeline cannot reach.
         fn = make_chained_pipeline(grid, cosmology, config)
         kv = jax.numpy.stack([jax.random.PRNGKey(s) for s in keys])
         out = fn(kv)
@@ -121,7 +109,7 @@ def cmd_truth(args):
     jax = _setup_jax(cpu=True)
     import numpy as np
 
-    grid, cosmology = _build(jax, args.nsamp, args.box, args.redshift)
+    grid, cosmology = _build(args.nsamp, args.box, args.redshift)
     keys = list(range(args.key0, args.key0 + args.keys))
 
     # A non-default draw_method is a DIFFERENT realisation stream, so it
@@ -171,117 +159,35 @@ def cmd_check(args):
     floor_bins = [float(v)
                   for v in np.max(_rel(d["f32_pk_cleaned"], t_c), axis=0)[:8]]
 
-    grid, cosmology = _build(jax, int(nsamp), float(box), float(redshift))
-    from fastbox_tpu.ops import fft_safe, mmfft
+    grid, cosmology = _build(int(nsamp), float(box), float(redshift))
 
-    # Variant table: (PipelineConfig kwargs, PREFER_MM, module precision,
-    # PALLAS_DFT).  PREFER_MM=True routes the 3D transforms through the
-    # matmul DFTs even where the native FFT is probed-OK (128^3), so the
-    # gate exercises the same FFT path production uses at 256^3+.
-    #
-    # Every variant that is meant to be a HIGHEST-3D baseline pins
-    # mm3d_precision='HIGHEST' EXPLICITLY: PipelineConfig's default is now
-    # 'HIGH' (pipeline.py), so empty kwargs would silently measure the HIGH
-    # path and make the committed gate numbers irreproducible (advisor
-    # round-2 finding #1).
+    # Variant table: PipelineConfig overrides on top of the gate config.
+    # "shipping" is the default configuration; the others each change one
+    # knob that trades accuracy for speed or structure.
     variants = {
-        "native_highest": (dict(mm3d_precision="HIGHEST"), False, None, False),
-        "mm_highest": (dict(mm3d_precision="HIGHEST"), True, None, False),
-        "mm3d_high": (dict(mm3d_precision="HIGH"), True, None, False),
-        "all_high": (dict(mm3d_precision="HIGH"), True, "HIGH", False),
-        "fft_pair": (dict(fft_pair=True, mm3d_precision="HIGHEST"),
-                     True, None, False),
-        # The shipping bench combination: HIGH big-3D transforms with the
-        # fused complex-pair inverse (bench.py --fft-pair; advisor
-        # round-2 finding #2 — this combination was never gated as such).
-        "fft_pair_high": (dict(fft_pair=True, mm3d_precision="HIGH"),
-                          True, None, False),
-        "pca_subspace": (dict(pca_exact=False, mm3d_precision="HIGHEST"),
-                         True, None, False),
-        # Velocity-inverse-only precision drop on top of the shipping
-        # HIGH default: the vel cube only enters as an RSD displacement
-        # (second-order in the density), so bf16 may be admissible where
-        # all-DEFAULT is not.
-        "vel_default": (dict(mm3d_precision="HIGH",
-                             vel_precision="DEFAULT"), True, None, False),
-        # Round-4: the shipping stack with the velocity inverse at
-        # HIGHEST — with fg_spectral='poly' (now the default) this is
-        # the accuracy champion (3.3e-4 at 256^3, AT the f32 floor).
-        "vel_highest": (dict(mm3d_precision="HIGH",
-                             vel_precision="HIGHEST"), True, None, False),
-        # Round-5 (VERDICT #1): the untried middle tier — bf16x3 on the
-        # velocity inverse.  The shipping default's entire accuracy
-        # residual (1.26e-3 vs the 3.0e-4 floor at 256^3) is the
-        # single-pass-bf16 velocity inverse; the x3 tier closed the same
-        # gap for mm3d at ~half the HIGHEST cost.  If this lands at/near
-        # the floor for <=~3%% it becomes the shipping default.
-        "vel_high": (dict(mm3d_precision="HIGH",
-                          vel_precision="HIGH"), True, None, False),
-        # Round-4 regression record: the round-3 incumbent FG path
-        # ((nu/ref)**alpha evaluated in f32 on device).  Its pixel-
-        # decorrelated exp/log rounding dominated the cleaned low bins
-        # at 1.3e-2 — keep it in the table so the poly win stays
-        # reproducible.
-        "fg_pow": (dict(mm3d_precision="HIGH", vel_precision="DEFAULT",
-                        fg_spectral="pow"), True, None, False),
-        "vel_high_all_highest": (dict(mm3d_precision="HIGHEST",
-                                      vel_precision="HIGH"),
-                                 True, None, False),
-        # Round-4 perf frontier: the DEFAULT (single-pass bf16) tier per
-        # big transform, re-gated now that fg_spectral='poly' removed the
-        # former dominant error.  HIGH->DEFAULT cuts each transform's
-        # matmul cost ~3x; the question is whether the bf16 rounding of
-        # the delta_x inverse (first-order in the field) and of the
-        # cleaned-cube forward (directly shapes pk_cleaned) stays in the
-        # admissible class.
-        # Round-4: PCA GEMMs at the HIGH tier (bf16x3, ~2.4e-7/element
-        # — vs DEFAULT's ~2e-3 that failed at 4.2e-2 in round 3).
-        # Halves the covariance/projection GEMM cost if admitted.
-        "pca_high": (dict(mm3d_precision="HIGH", vel_precision="DEFAULT",
-                          pca_precision="HIGH"), True, None, False),
-        # Round-4 binned-P(k) v2-telescoped (prefix-difference digitize
-        # — a different summation order; v2-plain is bit-identical and
-        # needs no gate).
-        "pk_v2t": (dict(mm3d_precision="HIGH", vel_precision="DEFAULT",
-                        pallas_pk="v2t"), True, None, False),
-        # Round-4 chained-eigh hoist (PipelineConfig.eigh_hoist): the
-        # shipping knob stack run through make_chained_pipeline with the
-        # batched eigh — algorithm-identical (f64 chain agrees to 5e-13,
-        # tests/test_pipeline_hoist.py), so this gates only the f32
-        # reordering scatter.
-        "eigh_hoist": (dict(mm3d_precision="HIGH", vel_precision="DEFAULT",
-                            eigh_hoist="on", _chained=True),
-                       True, None, False),
-        "mm3d_default": (dict(mm3d_precision="DEFAULT",
-                              vel_precision="DEFAULT"), True, None, False),
-        "dx_default": (dict(mm3d_precision="HIGH", vel_precision="DEFAULT",
-                            dx_precision="DEFAULT"), True, None, False),
-        "fwd_default": (dict(mm3d_precision="HIGH", vel_precision="DEFAULT",
-                             fwd_precision="DEFAULT"), True, None, False),
-        # Compensated split-f32 weights (Dekker hi+lo pair, two HIGHEST
-        # einsums) on the three big 3D transforms — the round-4 accuracy
-        # experiment: removes the f32 weight-representation error, leaving
-        # only the MXU's f32 accumulation error.  ~2x HIGHEST matmul cost.
-        "mm3d_split": (dict(mm3d_precision="SPLIT",
-                            vel_precision="DEFAULT"), True, None, False),
-        # SPLIT everywhere (big 3D + every module einsum): isolates how
-        # much of the residual comes from the non-3D transforms.
-        "all_split": (dict(mm3d_precision="SPLIT",
-                           vel_precision="SPLIT"), True, "SPLIT", False),
-        "pallas_dft": (dict(mm3d_precision="HIGHEST"), True, None, True),
-        # Box-Muller density draw on top of the shipping round-3 stack
-        # (HIGH big-3D + DEFAULT velocity inverse): a different threefry
-        # stream, so the f64 oracle consumes the same f32 uniforms via
-        # draw_dtype and the comparison stays per-bin.
-        "bm_draw": (dict(mm3d_precision="HIGH", vel_precision="DEFAULT",
-                         draw_method="box_muller"), True, None, False),
+        "shipping": {},
+        # PCA covariance/projection GEMMs below full float32: on a GPU
+        # "HIGH" lets cuBLAS use a reduced-precision tensor-core path.
+        "pca_high": dict(pca_precision="HIGH"),
+        "pca_default": dict(pca_precision="DEFAULT"),
+        # One complex matmul-DFT inverse for (delta_x, vel_z).
+        "fft_pair": dict(fft_pair=True, mm3d_precision="HIGHEST"),
+        "pca_subspace": dict(pca_exact=False),
+        # The generic f32 power law for the foreground spectra (the
+        # 'poly' default exists because this one's rounding dominated).
+        "fg_pow": dict(fg_spectral="pow"),
+        # Chained pipeline with the batched eigh between two scans.
+        "eigh_hoist": dict(eigh_hoist="on", _chained=True),
+        # Box-Muller density draw: a different stream, needs its own
+        # truth file (``truth --draw-method box_muller``).
+        "bm_draw": dict(draw_method="box_muller"),
     }
     if args.variants:
         names = args.variants.split(",")
         variants = {n: variants[n] for n in names}
 
     results = {}
-    for name, (kw, prefer_mm, prec, pallas_dft) in variants.items():
+    for name, kw in variants.items():
         kw = dict(kw)
         chained = kw.pop("_chained", False)
         variant_dm = kw.get("draw_method", "erfinv")
@@ -293,34 +199,9 @@ def cmd_check(args):
                   f"`truth --draw-method {variant_dm}`)", flush=True)
             results[name] = {"skipped": f"stream mismatch vs {truth_dm}"}
             continue
-        fft_safe.PREFER_MM = prefer_mm
-        mmfft.PALLAS_DFT = pallas_dft
-        if prec is not None:
-            mmfft.set_precision(prec)
-        jax.clear_caches()
-        try:
-            _, c, dd, s = _run(jax, grid, cosmology,
-                               _gate_config("float32", **kw), keys,
-                               chained=chained)
-        except Exception as e:
-            # A failed op POISONS the TPU client (CLAUDE.md): every later
-            # variant would report the same stale error as a misleading
-            # FAILED line.  Abort the scan on a device-side failure; only
-            # keep scanning on CPU (where clients survive op failures).
-            print(f"[check] {name:16s} FAILED: {e}", flush=True)
-            results[name] = {"error": str(e)}
-            if jax.default_backend() != "cpu":
-                print("[check] aborting scan: the TPU client may be "
-                      "poisoned — rerun remaining variants with "
-                      "--variants in a fresh process", flush=True)
-                break
-            continue
-        finally:
-            if prec is not None:
-                mmfft.set_precision(
-                    os.environ.get("FASTBOX_MM_PRECISION", "HIGHEST"))
-            fft_safe.PREFER_MM = False
-            mmfft.PALLAS_DFT = False
+        _, c, dd, s = _run(jax, grid, cosmology,
+                           _gate_config("float32", **kw), keys,
+                           chained=chained)
         rel = _rel(c, t_c)
         rel_d = _rel(dd, t_d)
         # Signed mean across keys per low bin: distinguishes a systematic
@@ -348,9 +229,10 @@ def cmd_check(args):
                "floor_bins": floor_bins,
                "nsamp": int(nsamp), "keys": keys, "variants": results}
     print(json.dumps(summary))
-    with open(args.out, "w") as f:
-        json.dump(summary, f, indent=1)
-    print(f"[check] wrote {args.out}", flush=True)
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(summary, f, indent=1)
+        print(f"[check] wrote {args.out}", flush=True)
 
 
 def main():
@@ -374,7 +256,8 @@ def main():
                    help="comma list; default all")
     c.add_argument("--cpu", action="store_true",
                    help="run the check phase on CPU (debug)")
-    c.add_argument("--out", default="TRUTH_GATE.json")
+    c.add_argument("--out", default=None,
+                   help="also write the JSON summary to this file")
     c.set_defaults(fn=cmd_check)
     args = ap.parse_args()
     args.fn(args)

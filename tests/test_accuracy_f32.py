@@ -1,4 +1,4 @@
-"""The BASELINE.json accuracy criterion: the float32 TPU pipeline's spectra
+"""The BASELINE.json accuracy criterion: the float32 pipeline's spectra
 must match the float64 CPU reference at <= 1e-4 relative tolerance on
 matched white-noise inputs."""
 import jax

@@ -7,7 +7,6 @@ the first retained 512^3 bin).  ``ops.spectra.kbin_thresholds`` decides
 membership on the exact integer lattice instead; these tests pin that
 contract.
 """
-import jax
 import jax.numpy as jnp
 import numpy as np
 
@@ -58,27 +57,3 @@ def test_fundamentals_in_first_retained_bin():
 def test_anisotropic_falls_back():
     grid = GridSpec.create(box_scale=(1e2, 2e2, 3e2), nsamp=16)
     assert spectra.kbin_thresholds(grid, spectra.default_kbins(grid)) is None
-
-
-def test_pallas_path_matches_xla_path_exactly():
-    """Pipeline pallas_pk='on' (interpret) and 'off' agree bin-for-bin —
-    both consume the same integer classification."""
-    from fastbox_tpu.cosmology import build_cosmology
-    from fastbox_tpu.pipeline import PipelineConfig, make_pipeline
-
-    grid = GridSpec.create(box_scale=(1e3,) * 3, nsamp=16, redshift=0.8)
-    cosmo = build_cosmology(dict(Omega_c=0.25, Omega_b=0.05, h=0.7,
-                                 n_s=0.95, sigma8=0.8), redshift=0.8)
-    key = jax.random.PRNGKey(3)
-    outs = {}
-    for mode in ("on", "off"):
-        fn = make_pipeline(grid, cosmo, PipelineConfig(pallas_pk=mode))
-        outs[mode] = fn(key)
-    a, b = outs["on"], outs["off"]
-    ga = np.isfinite(np.asarray(a["pk_cleaned"]))
-    gb = np.isfinite(np.asarray(b["pk_cleaned"]))
-    assert np.array_equal(ga, gb)
-    assert np.allclose(np.asarray(a["pk_cleaned"])[ga],
-                       np.asarray(b["pk_cleaned"])[gb], rtol=1e-4)
-    assert np.allclose(np.asarray(a["pk_density"])[ga],
-                       np.asarray(b["pk_density"])[gb], rtol=1e-4)

@@ -8,6 +8,7 @@ full evolution, and the runtime fallback when the bound is violated).
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from fastbox_tpu.cosmology import build_cosmology
 from fastbox_tpu.fields.cola import (
@@ -78,73 +79,6 @@ def test_paint_gather_are_adjoint(rng):
     assert abs(lhs - rhs) < 1e-9 * max(1.0, abs(lhs))
 
 
-def test_pallas_kernels_match_xla_rolls(rng):
-    """The fused Pallas paint/gather (ops/pallas/lattice_cic.py) must equal
-    the XLA-roll formulation (interpret mode; tiny case for CPU speed —
-    chosen so both one- and two-piece ``_rows`` slices are exercised)."""
-    from fastbox_tpu.ops.pallas.lattice_cic import (
-        cic_gather_lattice_pallas,
-        cic_paint_lattice_pallas,
-    )
-
-    N, B = 8, 1
-    disp, u = _lattice_setup(rng, N, B)
-    d = wrapped_displacement(jnp.asarray(u, jnp.float32), N)
-    w = jnp.asarray(rng.uniform(0.5, 2.0, size=(N, N, N)).astype(np.float32))
-    mesh = jnp.asarray(rng.standard_normal((N, N, N)).astype(np.float32))
-
-    p_ref = cic_paint_lattice(d, B=B, weights=w)
-    p_pl = cic_paint_lattice_pallas(d, B=B, weights=w, interpret=True)
-    assert np.abs(np.asarray(p_ref) - np.asarray(p_pl)).max() < 1e-5
-
-    g_ref = cic_gather_lattice(mesh, d, B=B)
-    g_pl = cic_gather_lattice_pallas(mesh, d, B=B, interpret=True)
-    assert np.abs(np.asarray(g_ref) - np.asarray(g_pl)).max() < 1e-5
-
-
-def test_pallas_openband_matches_closed(rng):
-    """Open-band kernels (2B+1 offsets per axis, valid for |d| < B
-    STRICTLY — the cola ladder's guarantee) must equal the closed-band
-    kernels and the XLA-roll oracle on strictly-bounded displacements."""
-    from fastbox_tpu.ops.pallas.lattice_cic import (
-        cic_gather3_lattice_pallas,
-        cic_gather_lattice_pallas,
-        cic_paint_lattice_pallas,
-    )
-
-    for N, B in ((8, 1), (16, 2), (16, 3)):
-        # Strict interior draw: |d| <= 0.999 B < B.
-        disp = rng.uniform(-0.999 * B, 0.999 * B, size=(N, N, N, 3))
-        idx = np.stack(np.meshgrid(*(np.arange(N),) * 3, indexing="ij"),
-                       axis=-1)
-        u = (idx + disp) % N
-        d = wrapped_displacement(jnp.asarray(u, jnp.float32), N)
-        w = jnp.asarray(rng.uniform(0.5, 2.0,
-                                    size=(N, N, N)).astype(np.float32))
-        meshes = tuple(jnp.asarray(
-            rng.standard_normal((N, N, N)).astype(np.float32))
-            for _ in range(3))
-
-        p_ref = cic_paint_lattice(d.astype(jnp.float64), B=B,
-                                  weights=w.astype(jnp.float64))
-        p_o = cic_paint_lattice_pallas(d, B=B, weights=w, interpret=True,
-                                       openband=True)
-        assert np.abs(np.asarray(p_ref) - np.asarray(p_o)).max() < 1e-4
-
-        g_ref = cic_gather_lattice(meshes[0].astype(jnp.float64),
-                                   d.astype(jnp.float64), B=B)
-        g_o = cic_gather_lattice_pallas(meshes[0], d, B=B, interpret=True,
-                                        openband=True)
-        assert np.abs(np.asarray(g_ref) - np.asarray(g_o)).max() < 1e-5
-
-        g3 = cic_gather3_lattice_pallas(meshes, d, B=B, interpret=True,
-                                        openband=True)
-        for m, got in zip(meshes, g3):
-            ref = cic_gather_lattice(m.astype(jnp.float64),
-                                     d.astype(jnp.float64), B=B)
-            assert np.abs(np.asarray(ref) - np.asarray(got)).max() < 1e-5
-
-
 def test_cola_lattice_matches_scatter_path():
     """Full COLA evolution: lattice CIC and scatter CIC give the same field
     (identical operators, different summation order only)."""
@@ -174,76 +108,41 @@ def test_cola_bound_violation_falls_back():
                                  lattice_B=None, **kw)
     assert np.abs(np.asarray(d0) - np.asarray(d1)).max() < 1e-8
 
-def test_pallas_kernel_variants_match(rng):
-    """The swapped-roll-axis (inner='y') kernel bodies and the fused
-    3-mesh gather must reproduce the default (inner='z') single-mesh
-    kernels exactly — same arithmetic, different roll scheduling."""
-    from fastbox_tpu.ops.pallas.lattice_cic import (
-        cic_gather3_lattice_pallas,
-        cic_gather_lattice_pallas,
-        cic_paint_lattice_pallas,
-    )
 
-    for N, B in ((8, 1), (16, 2)):
-        disp, u = _lattice_setup(rng, N, B)
-        d = wrapped_displacement(jnp.asarray(u, jnp.float32), N)
-        w = jnp.asarray(rng.uniform(0.5, 2.0,
-                                    size=(N, N, N)).astype(np.float32))
-        meshes = tuple(jnp.asarray(
-            rng.standard_normal((N, N, N)).astype(np.float32))
-            for _ in range(3))
-
-        p_ref = cic_paint_lattice_pallas(d, B=B, weights=w, interpret=True)
-        p_y = cic_paint_lattice_pallas(d, B=B, weights=w, interpret=True,
-                                       inner="y")
-        assert np.abs(np.asarray(p_ref) - np.asarray(p_y)).max() < 1e-5
-
-        g_ref = [cic_gather_lattice_pallas(m, d, B=B, interpret=True)
-                 for m in meshes]
-        g_y = cic_gather_lattice_pallas(meshes[0], d, B=B, interpret=True,
-                                        inner="y")
-        assert np.abs(np.asarray(g_ref[0]) - np.asarray(g_y)).max() < 1e-5
-        for inner in ("z", "y"):
-            g3 = cic_gather3_lattice_pallas(meshes, d, B=B, interpret=True,
-                                            inner=inner)
-            for a, b in zip(g_ref, g3):
-                assert np.abs(np.asarray(a) - np.asarray(b)).max() < 1e-5
+@pytest.mark.parametrize("B", [1, 2, 3])
+def test_xla_lattice_matches_scatter_each_band(rng, B):
+    """The roll lattice (the XLA path COLA takes within its band) equals
+    the scatter-add paint and the gather at every ladder band."""
+    N = 2 * B + 4
+    disp, u = _lattice_setup(rng, N, B)
+    w = rng.uniform(0.5, 2.0, size=(N, N, N))
+    mesh = jnp.asarray(rng.standard_normal((N, N, N)))
+    d = wrapped_displacement(jnp.asarray(u), N)
+    p_ref = cic_paint_particles(jnp.asarray(u.reshape(-1, 3)), N,
+                                weights=jnp.asarray(w.ravel()))
+    p_lat = cic_paint_lattice(d, B=B, weights=jnp.asarray(w))
+    assert np.abs(np.asarray(p_ref) - np.asarray(p_lat)).max() < 1e-11
+    g_ref = cic_gather(mesh, jnp.asarray(u.reshape(-1, 3))).reshape(N, N, N)
+    g_lat = cic_gather_lattice(mesh, d, B=B)
+    assert np.abs(np.asarray(g_ref) - np.asarray(g_lat)).max() < 1e-12
 
 
-def test_lattice_kernels_z_onfly_matches(rng, monkeypatch):
-    """The on-the-fly z-weight path (forced via a tiny block threshold)
-    is exact vs the resident-plane default.
+@pytest.mark.parametrize("M", [64 * 3 + 17, 64 + 1, 64 * 2])
+def test_scatter_remainder_block(rng, monkeypatch, M):
+    """Particle counts that are not a multiple of the scatter chunk take a
+    final remainder block: paint and gather equal the one-block path."""
+    from fastbox_tpu.fields import cola as cola_mod
 
-    At 512^3 blocks (4.19 MB) the (2B+1) resident z planes alone exceed
-    the physical VMEM, so large blocks recompute each plane from the
-    hoisted (floor, frac) pair (round 5; _Z_ONFLY_BLOCK_BYTES).  The
-    arithmetic is identical — only liveness changes."""
-    from fastbox_tpu.ops.pallas import lattice_cic as plc
-
-    N, B = 16, 2
-    d = jnp.asarray(rng.uniform(-(B - 0.01), B - 0.01,
-                                size=(N, N, N, 3)).astype(np.float32))
-    mesh = jnp.asarray(rng.standard_normal((N, N, N)).astype(np.float32))
-    meshes = (mesh, mesh * 0.5, mesh - 1.0)
-
-    p_ref = plc.cic_paint_lattice_pallas(d, B=B, openband=True,
-                                         interpret=True)
-    g_ref = plc.cic_gather_lattice_pallas(mesh, d, B=B, openband=True,
-                                          interpret=True)
-    g3_ref = plc.cic_gather3_lattice_pallas(meshes, d, B=B, openband=True,
-                                            interpret=True)
-
-    monkeypatch.setattr(plc, "_Z_ONFLY_BLOCK_BYTES", 1)
-    jax.clear_caches()  # the threshold is read at trace time
-    p_of = plc.cic_paint_lattice_pallas(d, B=B, openband=True,
-                                        interpret=True)
-    g_of = plc.cic_gather_lattice_pallas(mesh, d, B=B, openband=True,
-                                         interpret=True)
-    g3_of = plc.cic_gather3_lattice_pallas(meshes, d, B=B, openband=True,
-                                           interpret=True)
-    jax.clear_caches()
-
-    assert np.abs(np.asarray(p_ref) - np.asarray(p_of)).max() == 0.0
-    assert np.abs(np.asarray(g_ref) - np.asarray(g_of)).max() == 0.0
-    for a, b in zip(g3_ref, g3_of):
-        assert np.abs(np.asarray(a) - np.asarray(b)).max() == 0.0
+    N = 8
+    u = jnp.asarray(rng.uniform(-1.0, N + 1.0, (M, 3)))
+    w = jnp.asarray(rng.uniform(0.5, 1.5, M))
+    mesh = jnp.asarray(rng.standard_normal((N, N, N)))
+    p_ref = cola_mod.cic_paint_particles(u, N, weights=w)
+    g_ref = cola_mod.cic_gather(mesh, u)
+    monkeypatch.setattr(cola_mod, "_SCATTER_CHUNK", 64)
+    p_chunk = cola_mod.cic_paint_particles(u, N, weights=w)
+    g_chunk = cola_mod.cic_gather(mesh, u)
+    assert g_chunk.shape == (M,)
+    assert np.abs(np.asarray(p_ref) - np.asarray(p_chunk)).max() < 1e-12
+    assert np.abs(np.asarray(g_ref) - np.asarray(g_chunk)).max() < 1e-12
+    assert abs(float(p_chunk.sum()) - float(w.sum())) < 1e-9

@@ -1,9 +1,6 @@
-"""Oracle tests for the MXU matmul FFTs (ops/mmfft.py) and the
-self-validating dispatch facade (ops/fft_safe.py).
-
-The matmul DFTs are the trusted arbiter that fft_safe uses to detect the
-TPU backend's broken C2R transforms (CLAUDE.md), so they are validated
-here directly against numpy.fft on every code path the package uses.
+"""Oracle tests for the matmul FFTs (ops/mmfft.py), the formulation
+behind ``PipelineConfig.fft_pair``, against numpy.fft on every code path
+the package uses.
 """
 import jax
 import jax.numpy as jnp
@@ -97,10 +94,10 @@ def test_f64_precision(rng):
 
 
 # ---------------------------------------------------------------------
-# fft_safe dispatch
+# fft_safe facade
 # ---------------------------------------------------------------------
 def test_fft_safe_matches_native_on_cpu(cube):
-    """On CPU every fft_safe call must be exactly the native transform."""
+    """Every fft_safe call is exactly the native transform."""
     x = jnp.asarray(cube)
     np.testing.assert_array_equal(np.asarray(fft_safe.rfftn(x)),
                                   np.asarray(jnp.fft.rfftn(x)))
@@ -113,11 +110,6 @@ def test_fft_safe_matches_native_on_cpu(cube):
         np.asarray(jnp.fft.fftn(x.astype(jnp.complex64))))
 
 
-def test_fft_safe_probe_caches_and_accepts_cpu():
-    fwd, inv = fft_safe.native_fft_ok("cpu", (16, 16, 16), "float32")
-    assert fwd and inv
-
-
 def test_fft_safe_rfft2_padding(rng):
     """The beam convolution path: zero-padded rfft2/irfft2."""
     x = rng.standard_normal((6, 7)).astype(np.float32)
@@ -126,15 +118,6 @@ def test_fft_safe_rfft2_padding(rng):
     ref = np.fft.rfft2(x, s=(12, 14), axes=(0, 1))
     np.testing.assert_allclose(got, ref, rtol=1e-5,
                                atol=1e-5 * np.abs(ref).max())
-
-
-def test_matmul_only_context(cube):
-    """Inside matmul_only, CPU still uses native (no behavior change)."""
-    x = jnp.asarray(cube)
-    with fft_safe.matmul_only():
-        got = np.asarray(fft_safe.rfftn(x))
-    np.testing.assert_array_equal(got, np.asarray(jnp.fft.rfftn(x)))
-    assert fft_safe._FORCE_MM == 0
 
 
 def test_factor_override_roundtrip(rng):

@@ -162,34 +162,3 @@ def test_fft_pair_matches_default(cosmo_z08):
                                rtol=1e-9, equal_nan=True)
     np.testing.assert_allclose(float(a["sigma_data"]),
                                float(b["sigma_data"]), rtol=1e-10)
-
-
-def test_pallas_draw_cpu_fallback(cosmo_z08):
-    """pallas_draw='on' must fall back to the threefry draw off-TPU
-    (pltpu.prng_* has no CPU interpreter), bit-identical to 'off'."""
-    key = jax.random.PRNGKey(9)
-    off = make_pipeline(GRID, cosmo_z08,
-                        PipelineConfig(dtype="float64", nbins=8,
-                                       pallas_draw="off"))(key)
-    on = make_pipeline(GRID, cosmo_z08,
-                       PipelineConfig(dtype="float64", nbins=8,
-                                      pallas_draw="on"))(key)
-    np.testing.assert_array_equal(np.asarray(off["pk_cleaned"]),
-                                  np.asarray(on["pk_cleaned"]))
-
-
-def test_colored_half_noise_cpu_fallback_matches(cosmo_z08):
-    """colored_half_noise off-TPU == hermitian_half_noise * amp exactly."""
-    import jax.numpy as jnp
-
-    from fastbox_tpu.fields.gaussian import (colored_half_noise,
-                                             hermitian_half_noise)
-
-    key = jax.random.PRNGKey(4)
-    H = GRID.N // 2 + 1
-    amp = jnp.asarray(
-        np.random.default_rng(0).uniform(0.5, 2.0, (GRID.N, GRID.N, H)),
-        jnp.float64)
-    a = colored_half_noise(key, GRID, amp, jnp.float64)
-    b = hermitian_half_noise(key, GRID, jnp.float64) * amp
-    np.testing.assert_array_equal(np.asarray(a), np.asarray(b))

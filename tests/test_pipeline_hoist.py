@@ -54,7 +54,7 @@ def test_hoist_f32_within_conditioning_class(grid32, cosmo_z08):
 
 
 def test_hoist_auto_off_on_cpu(grid32, cosmo_z08):
-    """'auto' must resolve to the plain path off-TPU (bitwise identical
+    """'auto' must resolve to the plain path (bitwise identical
     outputs to eigh_hoist='off')."""
     a = _chain(grid32, cosmo_z08, "float32", "auto")
     b = _chain(grid32, cosmo_z08, "float32", "off")
